@@ -11,8 +11,11 @@ This module runs the lane-persistent fused path (``use_kernels=True``):
 the state lives in the kernels' lane layout (:class:`LaneSortState`) and
 predict/associate/update run as one launch of
 :func:`repro_torch.kernels.frame.fused_frame` per frame, fed by the
-lane-batched Hungarian stage when ``assoc="hungarian"``.  Streams are not
-padded: the kernel masks its own ragged edge.
+lane-batched Hungarian stage when ``assoc="hungarian"``.  With
+``chunk_kernel=True`` a whole serving chunk of F frames is one launch of
+:func:`repro_torch.kernels.chunk.fused_chunk`, which also runs the
+lifecycle and solves the Hungarian assignment inside the kernel.  Streams
+are not padded: the kernels mask their own ragged edge.
 """
 from __future__ import annotations
 
@@ -41,7 +44,7 @@ class SortConfig:
     use_kernels: bool = False
     # the reference's TPU stream block; unused here (no stream padding)
     block_b: int = 2048
-    # True -> one launch per serving chunk (not ported yet)
+    # True -> one launch per serving chunk (kernels/chunk.py::fused_chunk)
     chunk_kernel: bool = False
     # association cost; only the pure-IoU spec is ported so far
     cost: cost_mod.CostSpec = cost_mod.IOU
@@ -175,6 +178,41 @@ def reset_ragged(state: LaneSortState, reset: torch.Tensor,
     return reset_lanes(state, reset, uid_start)
 
 
+def chunk_state_of(lane: LaneSortState) -> kref.ChunkState:
+    """Persistent lane layout -> the chunk kernel's flat numeric
+    :class:`~repro_torch.kernels.ref.ChunkState`: views of ``x``/``p`` as
+    ``[*, T, S]``, lifecycle as int32, per-stream counters with a unit
+    leading axis.  Exact inverse of :func:`lane_state_of_chunk`."""
+    t, s = lane.pool.alive.shape
+    e = lane.embed.shape[0]
+    pool = lane.pool
+    return kref.ChunkState(
+        x=lane.x.reshape(kalman.DIM_X, t, s),
+        p=lane.p.reshape(49, t, s),
+        alive=pool.alive.to(torch.int32),
+        age=pool.age, hits=pool.hits, hit_streak=pool.hit_streak,
+        time_since_update=pool.time_since_update,
+        uid=pool.uid, cls=pool.cls,
+        next_uid=pool.next_uid[None, :],
+        frame_count=lane.frame_count[None, :],
+        embed=lane.embed.reshape(e, t, s))
+
+
+def lane_state_of_chunk(cs: kref.ChunkState) -> LaneSortState:
+    """The chunk kernel's :class:`~repro_torch.kernels.ref.ChunkState` back
+    to the persistent lane layout (exact inverse of :func:`chunk_state_of`)."""
+    t, s = cs.alive.shape
+    e = cs.embed.shape[0]
+    pool = slots.SlotPool(
+        alive=cs.alive > 0, age=cs.age, hits=cs.hits,
+        hit_streak=cs.hit_streak, time_since_update=cs.time_since_update,
+        uid=cs.uid, cls=cs.cls, next_uid=cs.next_uid[0])
+    return LaneSortState(x=cs.x.reshape(kalman.DIM_X, t * s),
+                         p=cs.p.reshape(49, t * s), pool=pool,
+                         frame_count=cs.frame_count[0],
+                         embed=cs.embed.reshape(e, t * s))
+
+
 def resolve_device(device=None) -> torch.device:
     """``None`` means the card.  Asking for CUDA where there is none
     raises instead of quietly running on the CPU."""
@@ -191,7 +229,8 @@ class SortEngine:
 
     ``device=None`` runs on the card and raises when CUDA is absent; pass
     ``device="cpu"`` for the plain PyTorch path.  ``frame_mode`` is the
-    default backend of :func:`repro_torch.kernels.ops.frame_step`:
+    backend of :func:`repro_torch.kernels.ops.frame_step` and, with
+    ``chunk_kernel=True``, of :func:`repro_torch.kernels.ops.chunk_step`:
     ``"auto"`` (the kernel for CUDA tensors, the plain version for CPU
     ones), ``"ref"`` (the plain version on any device) or ``"kernel"``.
     """
@@ -202,14 +241,14 @@ class SortEngine:
             raise ValueError(
                 f"SortConfig.assoc must be 'hungarian' or 'greedy', "
                 f"got {config.assoc!r}")
+        if config.chunk_kernel and not config.use_kernels:
+            raise ValueError(
+                "chunk_kernel=True is the chunk-resident kernel over the "
+                "fused lane path; it requires use_kernels=True")
         if not config.use_kernels:
             raise NotImplementedError(
                 "use_kernels=False is the per-phase engine path, ported in "
                 "the slice of the per-phase kernels (kalman_fused, iou_cost)")
-        if config.chunk_kernel:
-            raise NotImplementedError(
-                "chunk_kernel=True runs kernels/chunk.py::fused_chunk, "
-                "ported in the next slice")
         if config.num_classes != 1 or not config.cost.is_iou_only:
             raise NotImplementedError(
                 "only the single-class pure-IoU cost is ported; class "
@@ -350,8 +389,12 @@ class SortEngine:
         [F, L]`` and ``reset [F, L]`` bool; ``reset[f, l]`` recycles lane
         ``l`` in the step that carries the admitted sequence's first frame.
         Returns ``(state, SortOutput stacked over F)``.  One kernel launch
-        per frame.
+        per frame, or with ``config.chunk_kernel`` one for the whole chunk
+        (bit-identical either way).
         """
+        if self.config.chunk_kernel:
+            return self._run_chunk_kernel(state, det_boxes, det_mask, active,
+                                          reset)
         outs = []
         for f in range(det_boxes.shape[0]):
             state = reset_ragged(state, reset[f])
@@ -359,6 +402,26 @@ class SortEngine:
                                           active[f])
             outs.append(out)
         return state, _stack_outputs(outs)
+
+    def _run_chunk_kernel(self, state: LaneSortState, det_boxes, det_mask,
+                          active, reset):
+        cfg = self.config
+        dt = state.x.dtype
+        cs, outs = kops.chunk_step(
+            chunk_state_of(state),
+            det_boxes.to(dt).permute(0, 2, 3, 1),               # [F,D,4,L]
+            det_mask.to(dt).permute(0, 2, 1),                   # [F, D, L]
+            active.to(dt)[:, None, :],                          # [F, 1, L]
+            reset.to(torch.int32)[:, None, :],                  # [F, 1, L]
+            iou_threshold=cfg.iou_threshold, max_age=cfg.max_age,
+            min_hits=cfg.min_hits, mode=self.frame_mode, assoc=cfg.assoc)
+        out = SortOutput(
+            boxes=outs.boxes.permute(0, 3, 1, 2),               # [F, L, T, 4]
+            uid=outs.uid.permute(0, 2, 1),
+            emit=outs.emit.permute(0, 2, 1),
+            matched_det=outs.matched_det.permute(0, 2, 1),
+            cls=outs.cls.permute(0, 2, 1))
+        return lane_state_of_chunk(cs), out
 
     # -------------------------------------------------------------------- run
     def run(self, state: SortState, frames: torch.Tensor,

@@ -3,9 +3,9 @@
 Each source has a plain C interface and is compiled by ``nvcc`` into its
 own shared library at first use, under ``$REPRO_TORCH_BUILD/repro_torch``
 (``build/repro_torch`` of the working directory when the variable is
-unset), keyed by a hash of the source and the flags; a later call with the
-same source loads the library already built.  Nothing here runs at import
-time.
+unset), keyed by a hash of the source, the shared headers (``csrc/*.cuh``)
+and the flags; a later call with the same sources loads the library
+already built.  Nothing here runs at import time.
 
 Flags: ``sm_90a`` (Hopper), ``--fmad=false`` so no ``a*b+c`` is contracted
 into an FMA, and no ``--use_fast_math``, so division and square root stay
@@ -45,9 +45,9 @@ def build_dir() -> Path:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to, for its current source."""
-    src = CSRC / f"{name}.cu"
-    key = hashlib.sha256(src.read_bytes()
+    """Where ``csrc/<name>.cu`` builds to, for its current sources."""
+    sources = [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]
+    key = hashlib.sha256(b"".join(p.read_bytes() for p in sources)
                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return build_dir().resolve() / f"lib{name}_{key}.so"
 

@@ -23,74 +23,19 @@
 // every load and store is coalesced; only the per-stream det rows and the
 // greedy IoU tile go through shared memory.
 //
-// Arithmetic repeats the operation order of the plain PyTorch version
-// (src/repro_torch/kernels/ref.py) term by term, sums starting from 0 and
-// off-diagonal noise adding 0.  Built with --fmad=false and IEEE division
-// and square root, so it agrees with that version bit for bit.
+// The per-tracker arithmetic lives in sort_device.cuh (shared with
+// chunk.cu) and repeats the operation order of the plain PyTorch version
+// (src/repro_torch/kernels/ref.py) term by term.  Built with --fmad=false
+// and IEEE division and square root, so it agrees with that version bit
+// for bit.
 
 #include <cuda_runtime.h>
 
+#include "sort_device.cuh"
+
 namespace {
 
-constexpr int kMaxT = 32;      // tracker slots per stream (wrapper checks)
-constexpr int kMaxD = 32;      // detections per stream (wrapper checks)
-constexpr int kStreams = 8;    // streams per block: 8 floats = one 32 B sector
-constexpr float kEps = 1e-9f;
-
-__device__ __forceinline__ constexpr float q_diag(int i) {
-  return i < 4 ? 1.0f : (i < 6 ? 0.01f : 1e-4f);
-}
-__device__ __forceinline__ constexpr float r_diag(int i) {
-  return i < 2 ? 1.0f : 10.0f;
-}
-
-struct Inv2 { float a, b, c, d; };
-
-__device__ __forceinline__ Inv2 inv2(float m00, float m01, float m10, float m11) {
-  const float det = m00 * m11 - m01 * m10;
-  const float inv = 1.0f / det;
-  return {m11 * inv, -m01 * inv, -m10 * inv, m00 * inv};
-}
-
-// Blockwise inverse of an SPD 4x4 (Schur complement of the top-left 2x2),
-// in ref._inv4's order.
-__device__ __forceinline__ void inv4(const float s[4][4], float o[4][4]) {
-  const Inv2 ai = inv2(s[0][0], s[0][1], s[1][0], s[1][1]);
-  const float b00 = s[0][2], b01 = s[0][3], b10 = s[1][2], b11 = s[1][3];
-  const float c00 = s[2][0], c01 = s[2][1], c10 = s[3][0], c11 = s[3][1];
-  const float d00 = s[2][2], d01 = s[2][3], d10 = s[3][2], d11 = s[3][3];
-  const float ai00 = ai.a, ai01 = ai.b, ai10 = ai.c, ai11 = ai.d;
-  const float ca00 = c00 * ai00 + c01 * ai10;
-  const float ca01 = c00 * ai01 + c01 * ai11;
-  const float ca10 = c10 * ai00 + c11 * ai10;
-  const float ca11 = c10 * ai01 + c11 * ai11;
-  const float ab00 = ai00 * b00 + ai01 * b10;
-  const float ab01 = ai00 * b01 + ai01 * b11;
-  const float ab10 = ai10 * b00 + ai11 * b10;
-  const float ab11 = ai10 * b01 + ai11 * b11;
-  const float s00 = d00 - (ca00 * b00 + ca01 * b10);
-  const float s01 = d01 - (ca00 * b01 + ca01 * b11);
-  const float s10 = d10 - (ca10 * b00 + ca11 * b10);
-  const float s11 = d11 - (ca10 * b01 + ca11 * b11);
-  const Inv2 si = inv2(s00, s01, s10, s11);
-  const float si00 = si.a, si01 = si.b, si10 = si.c, si11 = si.d;
-  const float absi00 = ab00 * si00 + ab01 * si10;
-  const float absi01 = ab00 * si01 + ab01 * si11;
-  const float absi10 = ab10 * si00 + ab11 * si10;
-  const float absi11 = ab10 * si01 + ab11 * si11;
-  o[0][0] = ai00 + absi00 * ca00 + absi01 * ca10;
-  o[0][1] = ai01 + absi00 * ca01 + absi01 * ca11;
-  o[1][0] = ai10 + absi10 * ca00 + absi11 * ca10;
-  o[1][1] = ai11 + absi10 * ca01 + absi11 * ca11;
-  o[0][2] = -absi00; o[0][3] = -absi01;
-  o[1][2] = -absi10; o[1][3] = -absi11;
-  o[2][0] = -(si00 * ca00 + si01 * ca10);
-  o[2][1] = -(si00 * ca01 + si01 * ca11);
-  o[3][0] = -(si10 * ca00 + si11 * ca10);
-  o[3][1] = -(si10 * ca01 + si11 * ca11);
-  o[2][2] = si00; o[2][3] = si01;
-  o[3][2] = si10; o[3][3] = si11;
-}
+using namespace sortdev;
 
 // Grid: one block per kStreams consecutive streams; block (kStreams, T):
 // threadIdx.x is the stream within the block, threadIdx.y the tracker slot.
@@ -124,27 +69,11 @@ fused_frame_kernel(const float* __restrict__ x, const float* __restrict__ p,
   // ---- predict (F P F^T + Q, area velocity clamped), in registers ----
   float xp[7], pp[49];
   if (act) {
-    float xv[7];
 #pragma unroll
-    for (int r = 0; r < 7; ++r) xv[r] = x[r * TS + ts];
+    for (int r = 0; r < 7; ++r) xp[r] = x[r * TS + ts];
 #pragma unroll
     for (int r = 0; r < 49; ++r) pp[r] = p[r * TS + ts];
-    const float ds = (xv[2] + xv[6] <= 0.0f) ? 0.0f : xv[6];
-    xp[0] = xv[0] + xv[4]; xp[1] = xv[1] + xv[5]; xp[2] = xv[2] + ds;
-    xp[3] = xv[3]; xp[4] = xv[4]; xp[5] = xv[5]; xp[6] = ds;
-    // in place, row-major ascending: every entry read below is still the
-    // pre-predict value when it is read
-#pragma unroll
-    for (int i = 0; i < 7; ++i) {
-#pragma unroll
-      for (int j = 0; j < 7; ++j) {
-        float v = pp[i * 7 + j];
-        if (i < 3) v = v + pp[(i + 4) * 7 + j];
-        if (j < 3) v = v + pp[i * 7 + j + 4];
-        if (i < 3 && j < 3) v = v + pp[(i + 4) * 7 + j + 4];
-        pp[i * 7 + j] = v + (i == j ? q_diag(i) : 0.0f);
-      }
-    }
+    predict(xp, pp);
   }
 
   // ---- association ----
@@ -154,28 +83,14 @@ fused_frame_kernel(const float* __restrict__ x, const float* __restrict__ p,
   } else {
     __syncthreads();                       // det_sh complete
     // this slot's column of the IoU score tile
-    float bx1 = 0.0f, by1 = 0.0f, bx2 = 0.0f, by2 = 0.0f;
     const bool trk_ok = act && alive[ts] > 0.0f;
-    if (trk_ok) {
-      const float sa = fmaxf(xp[2], 0.0f);
-      const float ra = fmaxf(xp[3], kEps);
-      const float w = sqrtf(sa * ra);
-      const float h = sa / fmaxf(w, kEps);
-      const float hw = w / 2.0f, hh = h / 2.0f;
-      bx1 = xp[0] - hw; by1 = xp[1] - hh; bx2 = xp[0] + hw; by2 = xp[1] + hh;
-    }
+    const Box b = trk_ok ? z_to_xyxy(xp) : Box{0.0f, 0.0f, 0.0f, 0.0f};
     for (int d = 0; d < D; ++d) {
       float sc = -1.0f;
       if (trk_ok && det_mask[static_cast<long>(d) * S + s] > 0.0f) {
-        const float ax1 = det_sh[d][0][tx], ay1 = det_sh[d][1][tx];
-        const float ax2 = det_sh[d][2][tx], ay2 = det_sh[d][3][tx];
-        const float iw = fmaxf(fminf(ax2, bx2) - fmaxf(ax1, bx1), 0.0f);
-        const float ih = fmaxf(fminf(ay2, by2) - fmaxf(ay1, by1), 0.0f);
-        const float inter = iw * ih;
-        const float ua = fmaxf(ax2 - ax1, 0.0f) * fmaxf(ay2 - ay1, 0.0f);
-        const float ub = fmaxf(bx2 - bx1, 0.0f) * fmaxf(by2 - by1, 0.0f);
-        const float iou = inter / fmaxf(ua + ub - inter, 1e-9f);
-        if (iou >= iou_threshold) sc = iou;
+        const float v = iou(det_sh[d][0][tx], det_sh[d][1][tx],
+                            det_sh[d][2][tx], det_sh[d][3][tx], b);
+        if (v >= iou_threshold) sc = v;
       }
       score_sh[d * T + ty][tx] = sc;
     }
@@ -221,53 +136,14 @@ fused_frame_kernel(const float* __restrict__ x, const float* __restrict__ p,
 
   // ---- masked update with the gathered observation ----
   float z[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  if (t2d >= 0 && t2d < D) {
-    const float x1 = det_sh[t2d][0][tx], y1 = det_sh[t2d][1][tx];
-    const float x2 = det_sh[t2d][2][tx], y2 = det_sh[t2d][3][tx];
-    const float w = x2 - x1, h = y2 - y1;
-    z[0] = x1 + w / 2.0f;
-    z[1] = y1 + h / 2.0f;
-    z[2] = w * h;
-    z[3] = w / fmaxf(h, kEps);
-  }
-  const float m = t2d >= 0 ? 1.0f : 0.0f;
-  const float mc = 1.0f - m;
-  float y[4], sm[4][4], si[4][4], k[7][4];
+  if (t2d >= 0 && t2d < D)
+    xyxy_to_z(det_sh[t2d][0][tx], det_sh[t2d][1][tx], det_sh[t2d][2][tx],
+              det_sh[t2d][3][tx], z);
+  masked_update(xp, pp, z, t2d >= 0 ? 1.0f : 0.0f);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) y[i] = z[i] - xp[i];
+  for (int r = 0; r < 7; ++r) x_out[r * TS + ts] = xp[r];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      sm[i][j] = pp[i * 7 + j] + (i == j ? r_diag(i) : 0.0f);
-  inv4(sm, si);
-#pragma unroll
-  for (int i = 0; i < 7; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      float acc = 0.0f;
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) acc = acc + pp[i * 7 + kk] * si[kk][j];
-      k[i][j] = acc;
-    }
-#pragma unroll
-  for (int i = 0; i < 7; ++i) {
-    float acc = 0.0f;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc = acc + k[i][j] * y[j];
-    const float xn = xp[i] + acc;
-    x_out[i * TS + ts] = m * xn + mc * xp[i];
-  }
-#pragma unroll
-  for (int i = 0; i < 7; ++i)
-#pragma unroll
-    for (int j = 0; j < 7; ++j) {
-      float acc = 0.0f;
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) acc = acc + k[i][kk] * pp[kk * 7 + j];
-      const float pn = pp[i * 7 + j] - acc;
-      p_out[(i * 7 + j) * TS + ts] = m * pn + mc * pp[i * 7 + j];
-    }
+  for (int r = 0; r < 49; ++r) p_out[r * TS + ts] = pp[r];
 }
 
 template <bool kHasActive, bool kHasAssoc>

@@ -20,7 +20,7 @@ import torch
 from . import build, ref
 
 MAX_T = 32      # the kernel's bounds on tracker slots and detections
-MAX_D = 32      # per stream (csrc/frame.cu: kMaxT, kMaxD)
+MAX_D = 32      # per stream (csrc/sort_device.cuh: kMaxT, kMaxD)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int

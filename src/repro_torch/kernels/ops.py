@@ -1,16 +1,29 @@
-"""Dispatch of the fused frame step: the CUDA kernel or its plain version.
+"""Dispatch of the fused frame and chunk steps: the CUDA kernels or their
+plain versions.
 
 All operands are in the persistent lane layout (``x [7, T, S]``,
-``p [49, T, S]``, ``det [D, 4, S]``, masks ``[*, S]`` 0/1 float).
+``p [49, T, S]``, ``det [D, 4, S]``, masks ``[*, S]`` 0/1 float; a chunk
+adds a leading frame axis).
 """
 from __future__ import annotations
 
 import torch
 
-from . import frame, ref
+from . import chunk, frame, ref
 from ..core.association import associate_lane
 
-__all__ = ["frame_step"]
+__all__ = ["frame_step", "chunk_step"]
+
+
+def _resolve_mode(mode: str, on_cuda: bool) -> str:
+    if mode == "auto":
+        return "kernel" if on_cuda else "ref"
+    if mode not in ("ref", "kernel"):
+        raise ValueError(f"unknown mode {mode!r}")
+    if mode == "kernel" and not on_cuda:
+        raise RuntimeError("mode='kernel' needs CUDA tensors; the CPU runs "
+                           "the plain version (mode='ref' or 'auto')")
+    return mode
 
 
 def frame_step(x, p, det, det_mask, alive, stream_active=None, *,
@@ -33,16 +46,9 @@ def frame_step(x, p, det, det_mask, alive, stream_active=None, *,
     """
     if assoc not in ("greedy", "hungarian"):
         raise ValueError(f"unknown assoc {assoc!r}")
-    if mode == "auto":
-        mode = "kernel" if x.is_cuda else "ref"
-    if mode == "ref":
+    if _resolve_mode(mode, x.is_cuda) == "ref":
         return ref.frame_lane(x, p, det, det_mask, alive, iou_threshold,
                               active=stream_active, assoc=assoc)
-    if mode != "kernel":
-        raise ValueError(f"unknown mode {mode!r}")
-    if not x.is_cuda:
-        raise RuntimeError("mode='kernel' needs CUDA tensors; the CPU runs "
-                           "the plain version (mode='ref' or 'auto')")
     t2d_pre = (None if assoc == "greedy"
                else _hungarian_stage(x, det, det_mask, alive, stream_active,
                                      iou_threshold))
@@ -52,6 +58,38 @@ def frame_step(x, p, det, det_mask, alive, stream_active=None, *,
         None if stream_active is None else stream_active.contiguous(),
         t2d_pre, iou_threshold=iou_threshold)
     return x, p, t2d, md > 0
+
+
+def chunk_step(state: ref.ChunkState, det, det_mask, active, reset, *,
+               iou_threshold: float = 0.3, max_age: int = 1,
+               min_hits: int = 3, assoc: str = "greedy",
+               mode: str = "auto"):
+    """A whole serving chunk of F frames for every stream.
+
+    ``state`` is a :class:`ref.ChunkState`; ``det [F, D, 4, S]`` xyxy,
+    ``det_mask [F, D, S]`` and ``active [F, 1, S]`` 0/1 float, ``reset
+    [F, 1, S]`` 0/1 int32.  Both ``assoc`` modes run inside the one kernel
+    launch: greedy rounds, or the Hungarian (JV) solve of each stream's
+    assignment, so no plain version runs on the card path.
+
+    ``mode``: ``"auto"`` launches the kernel for CUDA tensors and runs the
+    plain :func:`ref.chunk_lane` for CPU ones; ``"ref"`` forces the plain
+    version; ``"kernel"`` forces the kernel and raises on CPU tensors.
+
+    Returns ``(ChunkState, ChunkOuts)`` stacked over F, with bool ``emit``
+    and ``matched_det``.
+    """
+    if assoc not in ("greedy", "hungarian"):
+        raise ValueError(f"unknown assoc {assoc!r}")
+    kw = dict(iou_threshold=iou_threshold, max_age=max_age,
+              min_hits=min_hits, assoc=assoc)
+    if _resolve_mode(mode, state.x.is_cuda) == "ref":
+        return ref.chunk_lane(state, det, det_mask, active, reset, **kw)
+    new_state, outs = chunk.fused_chunk(
+        ref.ChunkState(*(v.contiguous() for v in state)), det.contiguous(),
+        det_mask.contiguous(), active.contiguous(), reset.contiguous(), **kw)
+    return new_state, outs._replace(emit=outs.emit > 0,
+                                    matched_det=outs.matched_det > 0)
 
 
 def _hungarian_stage(x, det, det_mask, alive, stream_active,

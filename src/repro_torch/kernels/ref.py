@@ -13,13 +13,16 @@ reference unrolls a loop over matrix entries, these versions broadcast
 the same per-element arithmetic over a whole block at once.
 
 They are the CPU path of :func:`repro_torch.kernels.frame.fused_frame`
-and the yardstick it is held against on the card.
+and :func:`repro_torch.kernels.chunk.fused_chunk` and the yardstick they
+are held against on the card.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
-from ..core import association, greedy
+from ..core import association, greedy, kalman
 from ..core.kalman import Q_DIAG, R_DIAG
 
 _EPS = 1e-9
@@ -235,3 +238,231 @@ def frame_lane(x: torch.Tensor, p: torch.Tensor, det: torch.Tensor,
         x = torch.where(keep, x, x_in)
         p = torch.where(keep, p, p_in)
     return x, p, trk_to_det, matched_det
+
+
+# ------------------------------------------------------------------------
+# Chunk-resident execution: the whole serving step — masked lane re-init,
+# fused frame, tracker lifecycle, emit — in the lane layout, the body of
+# :func:`repro_torch.kernels.chunk.fused_chunk` and its plain version.
+# Repeats the reference's ``step_chunk_lane`` op for op (IoU cost, one
+# class), so a chunk equals F per-frame engine steps bit for bit.
+# ------------------------------------------------------------------------
+class ChunkState(NamedTuple):
+    """Per-lane SORT state as a flat bundle of numeric tensors, the state
+    the chunk kernel carries across its frame loop.
+
+    Every lifecycle field is int32 (``alive`` included: 0/1); per-stream
+    counters carry a leading unit axis: ``x [7, T, S]``, ``p [49, T, S]``,
+    slot fields ``[T, S]``, ``next_uid``/``frame_count`` ``[1, S]``.
+    ``embed`` is ``[0, T, S]``: the port has no appearance term yet.
+    ``core.sort.chunk_state_of`` / ``lane_state_of_chunk`` convert exactly.
+    """
+
+    x: torch.Tensor                  # [7, T, S]  Kalman means
+    p: torch.Tensor                  # [49, T, S] covariances
+    alive: torch.Tensor              # [T, S] int32 0/1
+    age: torch.Tensor                # [T, S] int32
+    hits: torch.Tensor               # [T, S] int32
+    hit_streak: torch.Tensor         # [T, S] int32
+    time_since_update: torch.Tensor  # [T, S] int32
+    uid: torch.Tensor                # [T, S] int32, -1 when dead
+    cls: torch.Tensor                # [T, S] int32 class, -1 when dead
+    next_uid: torch.Tensor           # [1, S] int32
+    frame_count: torch.Tensor        # [1, S] int32
+    embed: torch.Tensor              # [0, T, S]
+
+
+class ChunkOuts(NamedTuple):
+    """Per-frame outputs of the chunk body, stacked ``[F, ...]`` by
+    :func:`chunk_lane`."""
+
+    boxes: torch.Tensor        # [T, 4, S]
+    uid: torch.Tensor          # [T, S] int32
+    emit: torch.Tensor         # [T, S] bool (int32 from the kernel)
+    trk_to_det: torch.Tensor   # [T, S] int32
+    matched_det: torch.Tensor  # [D, S] bool (int32 from the kernel)
+    cls: torch.Tensor          # [T, S] int32 track class, -1 when dead
+
+
+def assign_slots_lane_unrolled(free_mask: torch.Tensor,
+                               want_mask: torch.Tensor) -> torch.Tensor:
+    """:func:`repro_torch.core.slots.assign_slots_lane` by unrolled
+    compare and accumulate: the k-th claimant takes the k-th free slot, -1
+    when the pool is exhausted.  ``free [T, ...]``, ``want [D, ...]`` bool
+    -> ``slot_for [D, ...] int32``, integer-exact against the scatter
+    version."""
+    t, d = free_mask.shape[0], want_mask.shape[0]
+    zero = torch.zeros(free_mask.shape[1:], dtype=torch.int32,
+                       device=free_mask.device)
+    free_rank = []                    # free slots with index < ti
+    num_free = zero
+    for ti in range(t):
+        free_rank.append(num_free)
+        num_free = num_free + free_mask[ti].to(torch.int32)
+    want_rank = []                    # claimants with index < di
+    acc = zero
+    for di in range(d):
+        want_rank.append(acc)
+        acc = acc + want_mask[di].to(torch.int32)
+    rows = []
+    for di in range(d):
+        ok = want_mask[di] & (want_rank[di] < num_free)
+        slot = torch.full(free_mask.shape[1:], -1, dtype=torch.int32,
+                          device=free_mask.device)
+        for ti in range(t):
+            hit = free_mask[ti] & (free_rank[ti] == want_rank[di])
+            slot = torch.where(ok & hit, ti, slot)
+        rows.append(slot)
+    if not rows:
+        return torch.zeros((0,) + free_mask.shape[1:], dtype=torch.int32,
+                           device=free_mask.device)
+    return torch.stack(rows, dim=0)
+
+
+def step_chunk_lane(state: ChunkState, det: torch.Tensor,
+                    det_mask: torch.Tensor, active: torch.Tensor,
+                    reset: torch.Tensor,
+                    trk_to_det: torch.Tensor | None = None, *,
+                    iou_threshold: float = 0.3, max_age: int = 1,
+                    min_hits: int = 3, assoc: str = "greedy"):
+    """One serving step of the chunk body: masked lane re-init, fused
+    predict/associate/update, tick, births, inactive-lane freeze, emit.
+
+    ``det [D, 4, S]`` xyxy, ``det_mask [D, S]`` and ``active [1, S]`` 0/1
+    float, ``reset [1, S]`` 0/1 numeric; ``trk_to_det [T, S] int32``
+    (optional) is a precomputed, gated assignment that replaces the
+    association.  Returns ``(ChunkState, ChunkOuts)``.
+    """
+    from ..core import slots
+
+    dt = state.x.dtype
+    dev = state.x.device
+    t = state.alive.shape[0]
+    d = det.shape[0]
+    act = active[0] > 0                                      # [S]
+    rst = reset[0] > 0                                       # [S]
+
+    # masked lane re-init (uid_start=1): a recycled lane and its admitted
+    # sequence's first frame share the step
+    p0 = kalman.initial_covariance(dt, dev).reshape(49)[:, None, None]
+    x = torch.where(rst[None, None], 0.0, state.x)
+    p = torch.where(rst[None, None], p0, state.p)
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    alive0 = (state.alive > 0) & ~rst[None]
+    pool0 = slots.SlotPool(
+        alive=alive0,
+        age=torch.where(rst[None], zero, state.age),
+        hits=torch.where(rst[None], zero, state.hits),
+        hit_streak=torch.where(rst[None], zero, state.hit_streak),
+        time_since_update=torch.where(rst[None], zero,
+                                      state.time_since_update),
+        uid=torch.where(rst[None], -1, state.uid),
+        cls=torch.where(rst[None], -1, state.cls),
+        next_uid=torch.where(rst, 1, state.next_uid[0]),     # [S]
+    )
+    fc0 = torch.where(rst, zero, state.frame_count[0])       # [S]
+
+    # 1-3. fused predict + IoU + assign + masked update (inactive lanes
+    # restored inside)
+    x, p, t2d, matched = frame_lane(
+        x, p, det, det_mask, alive0.to(dt), iou_threshold,
+        active=active, assoc=assoc, trk_to_det=trk_to_det)
+
+    # 4a. age & kill
+    pool = slots.tick(pool0, t2d >= 0, max_age)
+
+    # 4b. births from unmatched detections into free slots
+    unmatched = (det_mask > 0) & ~matched & act[None]
+    slot_for = assign_slots_lane_unrolled(~pool.alive, unmatched)
+    z_det = xyxy_to_z_lane(det)                              # [4, D, S]
+    claimed = slot_for >= 0
+    born_order = []                                          # claimants < di
+    n_born = torch.zeros(slot_for.shape[1:], dtype=torch.int32, device=dev)
+    for di in range(d):
+        born_order.append(n_born)
+        n_born = n_born + claimed[di].to(torch.int32)
+    born_rows, uid_rows, cls_rows, zb_rows = [], [], [], []
+    for ti in range(t):
+        sel_any = torch.zeros(slot_for.shape[1:], dtype=torch.bool,
+                              device=dev)
+        uid_t = pool.uid[ti]
+        cls_t = pool.cls[ti]
+        zb_t = torch.zeros((4,) + slot_for.shape[1:], dtype=dt, device=dev)
+        for di in range(d):
+            sel = slot_for[di] == ti      # claimed slots are distinct
+            sel_any = sel_any | sel
+            uid_t = torch.where(sel, pool.next_uid + born_order[di], uid_t)
+            cls_t = torch.where(sel, zero, cls_t)
+            zb_t = torch.where(sel[None], z_det[:, di], zb_t)
+        born_rows.append(sel_any)
+        uid_rows.append(uid_t)
+        cls_rows.append(cls_t)
+        zb_rows.append(zb_t)
+    born = torch.stack(born_rows, dim=0)                     # [T, S]
+    zb = torch.stack(zb_rows, dim=1)                         # [4, T, S]
+    pool = slots.SlotPool(
+        alive=pool.alive | born,
+        age=torch.where(born, zero, pool.age),
+        hits=torch.where(born, zero, pool.hits),
+        hit_streak=torch.where(born, zero, pool.hit_streak),
+        time_since_update=torch.where(born, zero, pool.time_since_update),
+        uid=torch.stack(uid_rows, dim=0),
+        cls=torch.stack(cls_rows, dim=0),
+        next_uid=pool.next_uid + n_born,
+    )
+    x_init = torch.cat([zb, torch.zeros((3,) + zb.shape[1:], dtype=dt,
+                                        device=dev)], 0)
+    x = torch.where(born[None], x_init, x)
+    p = torch.where(born[None], p0, p)
+
+    # inactive lanes: lifecycle freezes (x/p were restored inside
+    # frame_lane; births cannot fire: `unmatched` was gated by act)
+    def sel(new, old):
+        return torch.where(act[None], new, old)
+
+    pool = slots.SlotPool(
+        alive=sel(pool.alive, pool0.alive),
+        age=sel(pool.age, pool0.age),
+        hits=sel(pool.hits, pool0.hits),
+        hit_streak=sel(pool.hit_streak, pool0.hit_streak),
+        time_since_update=sel(pool.time_since_update,
+                              pool0.time_since_update),
+        uid=sel(pool.uid, pool0.uid),
+        cls=sel(pool.cls, pool0.cls),
+        next_uid=torch.where(act, pool.next_uid, pool0.next_uid),
+    )
+    fc = fc0 + act.to(torch.int32)                           # [S]
+
+    # 5. emit: updated this frame AND (probation passed OR warmup)
+    warmup = (fc <= min_hits)[None]                          # [1, S]
+    emit = (pool.alive & (pool.time_since_update < 1)
+            & ((pool.hit_streak >= min_hits) | warmup) & act[None])
+    new_state = ChunkState(
+        x=x, p=p, alive=pool.alive.to(torch.int32), age=pool.age,
+        hits=pool.hits, hit_streak=pool.hit_streak,
+        time_since_update=pool.time_since_update, uid=pool.uid,
+        cls=pool.cls, next_uid=pool.next_uid[None, :],
+        frame_count=fc[None, :], embed=state.embed)
+    outs = ChunkOuts(boxes=z_to_xyxy_lane(x[:4]), uid=pool.uid, emit=emit,
+                     trk_to_det=t2d, matched_det=matched, cls=pool.cls)
+    return new_state, outs
+
+
+def chunk_lane(state: ChunkState, det: torch.Tensor, det_mask: torch.Tensor,
+               active: torch.Tensor, reset: torch.Tensor,
+               trk_to_det: torch.Tensor | None = None, *,
+               iou_threshold: float = 0.3, max_age: int = 1,
+               min_hits: int = 3, assoc: str = "greedy"):
+    """:func:`step_chunk_lane` over the frame axis: ``det [F, D, 4, S]``,
+    ``det_mask [F, D, S]``, ``active``/``reset`` ``[F, 1, S]``, optional
+    ``trk_to_det [F, T, S] int32``.  Returns ``(ChunkState, ChunkOuts
+    stacked over F)``."""
+    outs = []
+    for f in range(det.shape[0]):
+        state, out = step_chunk_lane(
+            state, det[f], det_mask[f], active[f], reset[f],
+            None if trk_to_det is None else trk_to_det[f],
+            iou_threshold=iou_threshold, max_age=max_age,
+            min_hits=min_hits, assoc=assoc)
+        outs.append(out)
+    return state, ChunkOuts(*(torch.stack(v) for v in zip(*outs)))

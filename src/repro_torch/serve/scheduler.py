@@ -6,12 +6,17 @@ budget of ``num_lanes`` engine lanes:
 * **Admission** is FIFO: the moment a lane's sequence ends, the lane is
   recycled — masked re-init (``core.sort.reset_ragged``) plus the new
   sequence's first frame run in the *same* step.
-* **Ragged stepping**: every step runs ``SortEngine.step_ragged`` with a
-  per-lane ``active`` mask, so lanes between sequences are exact no-ops
-  inside the one kernel launch of the frame.
+* **Ragged stepping**: every step carries a per-lane ``active`` mask, so
+  lanes between sequences are exact no-ops inside the kernel.
 * **Chunked execution**: the host plans ``chunk`` steps at a time (the
   admission schedule depends only on queue order and lengths), sends the
-  chunk's operands to the device once, and reads the outputs back once.
+  chunk's operands to the device once, runs them through
+  ``SortEngine.run_chunk_ragged`` and reads the outputs back once.  The
+  engine's config picks the dispatch: one ``fused_frame`` launch per step
+  (FUSED) or one ``fused_chunk`` launch for the whole chunk
+  (``chunk_kernel=True``, the MEGAKERNEL presets).  Planning, tracks and
+  the counters (``lane_steps``, ``chunks_run``, ``utilization``) are the
+  same under both.
 * **Drain**: finished sequences come out **in submission order** through
   :class:`repro_torch.data.stream.ReorderBuffer`, each a dense
   :class:`repro_torch.data.stream.SequenceTracks` equal to a solo run of

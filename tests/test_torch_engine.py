@@ -195,10 +195,12 @@ def test_device_rules(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         SortEngine(FUSED.sort, device="cuda")
     assert SortEngine(FUSED.sort, device="cpu").device.type == "cpu"
-    for change, name in ((dict(use_kernels=False), "per-phase"),
-                         (dict(chunk_kernel=True), "fused_chunk"),
-                         (dict(num_classes=3), "multi-class")):
-        with pytest.raises(NotImplementedError, match=name):
+    for change, error, name in (
+            (dict(use_kernels=False), NotImplementedError, "per-phase"),
+            (dict(chunk_kernel=True, use_kernels=False), ValueError,
+             "use_kernels=True"),
+            (dict(num_classes=3), NotImplementedError, "multi-class")):
+        with pytest.raises(error, match=name):
             SortEngine(dataclasses.replace(FUSED.sort, **change),
                        device="cpu")
     eng = SortEngine(_small(), device="cpu")
